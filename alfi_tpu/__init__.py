@@ -1,4 +1,4 @@
-"""alfi_tpu — TPU-native Reynolds-robust Navier-Stokes solvers.
+"""alfi_tpu — JAX-native Reynolds-robust Navier-Stokes solvers.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability set of
 florianwechsung/alfi (augmented-Lagrangian preconditioned Newton-FGMRES

@@ -58,7 +58,7 @@ def get_default_parser():
                         default=False, action="store_true")
     parser.add_argument("--smoothing", type=int, default=None)
     # the reference gets multi-rank execution from the launcher
-    # (mpirun -n N, /root/reference/examples/Makefile:1); the TPU
+    # (mpirun -n N, /root/reference/examples/Makefile:1); the JAX
     # analogue is an explicit device count: shard the mesh-decomposed
     # solver over N chips of this host's jax.devices()
     parser.add_argument("--ndevices", type=int, default=1)
@@ -257,7 +257,7 @@ def run_solver(solver, res, args):
             if args.checkpoint and info_dict.get("converged", True):
                 # atomic write (tmp + rename): a concurrent run sharing
                 # the checkpoint dir (e.g. a CPU minting pass alongside
-                # the TPU sweep) must never observe a half-written npz
+                # the GPU sweep) must never observe a half-written npz
                 tmp = "%s.tmp%d.npz" % (path, os.getpid())
                 np.savez(tmp, u=np.asarray(z[0]), p=np.asarray(z[1]),
                          numbering=_numbering_tag(),

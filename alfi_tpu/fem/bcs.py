@@ -1,6 +1,6 @@
 """Dirichlet boundary conditions for the mixed (u, p) system.
 
-TPU-native replacement for firedrake.DirichletBC as used by the problem
+JAX-native replacement for firedrake.DirichletBC as used by the problem
 definitions (/root/reference/examples/ldc2d/ldc2d.py:22-25).  A BC is
 resolved ONCE on the host into (dof indices, nodal values); the device sees
 only a 0/1 row mask pytree and a values pytree:

@@ -2,7 +2,7 @@
 
 The reference gets dS-integrals (Burman edge stabilisation,
 /root/reference/alfi/stabilisation.py:156-162) from TSFC-generated
-interior-facet kernels; here the TPU-native design is: a SMALL set of
+interior-facet kernels; here the JAX-native design is: a SMALL set of
 "configurations" — (ordered local vertex indices of the facet within the
 cell) — is tabulated once as constants, and every facet side just stores
 its configuration id.  Facet quadrature points are parametrised by the

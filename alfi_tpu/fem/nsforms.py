@@ -1,7 +1,7 @@
 """Navier-Stokes residual kernels (device, jit/vmap/autodiff friendly).
 
 Hand-derived element kernels for the reference's fixed form set — the
-TPU-native replacement for the UFL->TSFC->C pipeline:
+JAX-native replacement for the UFL->TSFC->C pipeline:
 
 * ``pkp0`` residual (/root/reference/alfi/solver.py:562-572):
       nu (2 sym grad u, grad v) + gamma (cell_avg(div u), div v)
@@ -36,9 +36,8 @@ def _map_cell_chunks(fn, *arrays, chunk):
     The element-Jacobian builders materialise quadrature-sized temps
     (physical gradients g: nc x nq x nld doubles, plus einsum
     operand copies) — at 3D production sizes (nq = 125 for [P2+FB]^3,
-    nc = 24,576 at ldc3d nref=2) that is ~4 GB per temp and XLA's
-    remat copies OOM'd the 16 GB chip (round 5,
-    results/logs/ldc3d_p2fb_nref2_re5000_tpu.log attempt 2).  lax.map
+    nc = 24,576 at ldc3d nref=2) that is ~4 GB per temp, plus XLA's
+    remat copies.  lax.map
     guarantees the chunks run SEQUENTIALLY, so peak temp memory is one
     chunk's worth; splitting a cell-local contraction by cells is
     bit-exact."""
@@ -251,7 +250,7 @@ class NSForm:
         """Geometry-only parts of the velocity Jacobian: (K viscous,
         G grad-div) as (nc, nl*d, nl*d).  Recomputed in-trace per call —
         a few cheap einsums; embedding them as jit constants (~tens of
-        MB) was observed to blow up XLA compile times on TPU."""
+        MB) was observed to blow up XLA compile times."""
         jinv, detj, vol = self._geom_args()
         tv = self.tab_v
         nl, d = tv.nloc, self.dim
@@ -294,9 +293,7 @@ class NSForm:
         K[(l,i),(m,j)] = delta_ij int g_l . g_m + int g_m[i] g_l[j].
 
         The naive "...->climj" einsums materialise 6-D (c,nl,d,nl,d)
-        temps whose two minor dims (nl, d) tile-pad ~10x on TPU — the
-        measured 13.5 GB OOM that blocked ldc3d nref=2 on-chip
-        (round 5, results/logs/ldc3d_p2fb_nref2_re5000_tpu.log).
+        temps (a 13.5 GB allocation at ldc3d nref=2 shapes).
         Instead: one batched GEMM over quadrature with FLAT basis
         indices, then a static index-gather for the component
         permutation — bit-identical output (gate:
@@ -360,7 +357,7 @@ class NSForm:
             adv1 = jnp.einsum("cq,ql,cqmd,cqd->clm", wdet, tv.phi, g,
                               w_q)
             # flat-form build (see _flat_viscous_K for why the 6-D
-            # "...->climj" route is forbidden on TPU): delta_ij kron
+            # "...->climj" route is avoided): delta_ij kron
             # via gather, the gw part as a sum of per-quadrature
             # Kronecker terms mass_q (x) gw_q — phi couples only
             # (l, m) and gw only (i, j), so each q term is two
@@ -447,7 +444,7 @@ class NSForm:
 
         cell_avg mode: q = 1 (one rank-1 term per cell); exact mode:
         q = #points of a minimal degree-2(k-1) rule.  This is the key to
-        f32-stable patch/coarse solves on TPU: A = M + gamma Bt Bt^T is
+        f32-stable patch/coarse solves (ALFI_TPU_WOODBURY): A = M + gamma Bt Bt^T is
         factorised by Woodbury with gamma entering only as 1/gamma, so
         the factorisation conditioning is INDEPENDENT of gamma (the
         direct LU of A is singular to f32 at the default gamma=1e4)."""
@@ -527,25 +524,14 @@ class NSForm:
 
         Closed-form replacement for the reference's DGMassInv PC
         (/root/reference/alfi/solver.py:15-38).  P0 is a scalar
-        reciprocal; higher DG orders invert in pc_dtype (TPU XLA has no
-        f64 LU) and recover f64 with two Newton-Schulz steps."""
-        from ..config import pc_dtype
-
+        reciprocal; higher DG orders invert the small cell blocks."""
         tq = self.tab_q
         M = jnp.einsum(
             "q,c,ql,qm->clm", tq.w, self.geom.detj, tq.phi, tq.phi
         )
         if tq.nloc == 1:
             return 1.0 / M
-        dt = pc_dtype()
-        Minv = jnp.linalg.inv(M.astype(dt)).astype(M.dtype)
-        if dt != M.dtype:
-            eye = jnp.eye(tq.nloc, dtype=M.dtype)
-            for _ in range(2):
-                Minv = jnp.einsum(
-                    "clm,cmn->cln", Minv,
-                    2.0 * eye[None] - jnp.einsum("clm,cmn->cln", M, Minv))
-        return Minv
+        return jnp.linalg.inv(M)
 
     def pressure_integral(self, p):
         tq = self.tab_q

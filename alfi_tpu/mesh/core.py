@@ -1,6 +1,6 @@
 """Simplicial mesh core (host-side, numpy).
 
-TPU-native replacement for the DMPlex layer the reference depends on
+JAX-native replacement for the DMPlex layer the reference depends on
 (/root/reference/alfi/bary.py, alfi/relaxation.py rely on DMPlex topology
 queries).  All topology is computed once on the host as flat numpy arrays;
 the device only ever sees padded integer maps derived from these.

@@ -2,7 +2,7 @@
 
 The reference ships Gmsh meshes for its backwards-facing-step and DFG
 problems (/root/reference/examples/bfs2d/backwards-facing-step.geo,
-bfs3d/backwards-facing-step-3d.geo, dfg/dfg.geo); the TPU-native design
+bfs3d/backwards-facing-step-3d.geo, dfg/dfg.geo); the JAX-native design
 generates equivalent block-structured simplicial meshes directly (the
 ``gmsh_read`` path still accepts external .msh files).  Boundary tags
 match the reference's physical ids:

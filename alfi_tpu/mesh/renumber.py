@@ -1,9 +1,7 @@
-"""Geometric (lexicographic) entity numbering — the TPU fast-path enabler.
+"""Geometric (lexicographic) entity numbering — the sliced-patch enabler.
 
-TPU gathers cost ~8-16 cycles per fetched row regardless of width
-(results/logs/gather_microbench.log), so table-driven FEM index ops run
-two orders of magnitude under the HBM roofline.  The escape hatch is
-STRUCTURE: on the generated benchmark meshes (uniformly refined
+Table-driven FEM index ops are random gathers, far below the HBM
+roofline.  The escape hatch is STRUCTURE: on the generated benchmark meshes (uniformly refined
 structured triangulations — ldc2d, the bench protocol, the headline
 robustness sweeps) a lexicographic entity numbering makes every patch-
 smoother index table AFFINE in the seed-grid coordinates, so the hot

@@ -9,7 +9,7 @@ smoother + Schoeberl transfer capture, so its iteration counts blow up
 as gamma (and Re) grow — reproducing that contrast is the point of
 shipping the mode.
 
-TPU-first design:
+JAX-first design:
 * host one-time setup (numpy/scipy): scalar-dof aggregation by greedy
   maximal-independent-set rooting on the share-a-cell dof graph,
   componentwise tentative prolongator, Jacobi-smoothed

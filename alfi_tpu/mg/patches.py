@@ -1,6 +1,6 @@
-"""Vertex-star patch smoothers, batched for the MXU.
+"""Vertex-star patch smoothers, batched.
 
-TPU-native replacement for PETSc's PCPatch + the reference's topological
+JAX-native replacement for PETSc's PCPatch + the reference's topological
 patch constructors (/root/reference/alfi/relaxation.py Star/MacroStar,
 configured at /root/reference/alfi/solver.py:313-344).  Design per
 SURVEY.md §7 stage 4:
@@ -284,7 +284,7 @@ def build_multiplicative_solver(patchset, direction=None,
                                 symmetrise=True):
     """Ordered multiplicative patch sweep as a sequence of conflict-free
     additive sub-sweeps (one per color) with residual updates in between
-    — the TPU formulation of PCPatch's multiplicative + symmetrise_sweep
+    — the batched formulation of PCPatch's multiplicative + symmetrise_sweep
     (/root/reference/alfi/solver.py:321-328).
 
     Returns (factor, apply) where apply(lufac, b_flat, Aop_flat) performs
@@ -351,12 +351,12 @@ def contract_patch_tensors(patchset, tensors):
     (NO padding diagonal — see assemble_patch_matrices).
 
     A_p = sum_j P_j^T T_j P_j with P_j the 0/1 cell-local -> patch-local
-    placement matrix — on accelerators evaluated as two batched matmuls
-    (measured 2x faster than the XLA scatter at the bench shapes,
-    scripts/profile_patches.py, and exact: products with 0/1 entries);
-    the scatter formulation is the CPU path."""
+    placement matrix, evaluated as a per-patch scatter-add of the
+    member-cell tensors (runs once per Newton-step setup)."""
     import jax
     import jax.numpy as jnp
+
+    from ..fem.nsforms import _map_cell_chunks
 
     m = patchset.m
     cells = jnp.asarray(patchset.cells)
@@ -365,42 +365,24 @@ def contract_patch_tensors(patchset, tensors):
         [tensors,
          jnp.zeros((1,) + tensors.shape[1:], dtype=tensors.dtype)],
         axis=0)
-
-    npat, mc = patchset.cells.shape
+    mc = patchset.cells.shape[1]
     nld = tensors.shape[-1]
-    # one-hot temporaries are (np, mc, nld, m+1); in 3D (m ~ 40-150)
-    # they reach GBs and kill the compile — scatter there instead (the
-    # contraction runs once per Newton-step setup, where a scatter's
-    # ~8 ms is immaterial; only the CYCLE must stay scatter-free)
-    onehot_bytes = npat * mc * nld * (m + 1) * tensors.dtype.itemsize
-    if jax.default_backend() == "cpu" or onehot_bytes > 2 ** 27:
-        from ..fem.nsforms import _map_cell_chunks
 
-        def contract(cells_c, l2p_c):
-            def one(cells_p, l2p_p):
-                T = Tpad[cells_p]  # (mc, nld, nld)
-                A = jnp.zeros((m + 1, m + 1), dtype=tensors.dtype)
-                A = A.at[l2p_p[:, :, None], l2p_p[:, None, :]].add(T)
-                return A[:m, :m]
+    def contract(cells_c, l2p_c):
+        def one(cells_p, l2p_p):
+            T = Tpad[cells_p]  # (mc, nld, nld)
+            A = jnp.zeros((m + 1, m + 1), dtype=tensors.dtype)
+            A = A.at[l2p_p[:, :, None], l2p_p[:, None, :]].add(T)
+            return A[:m, :m]
 
-            return jax.vmap(one)(cells_c, l2p_c)
+        return jax.vmap(one)(cells_c, l2p_c)
 
-        # chunk over patches: the vmapped member-cell gather
-        # materialises (np, mc, nld, nld) — 8.3 GB padded at ldc3d
-        # nref=2 (round-5 OOM log); ~256 MB per sequential chunk
-        per_patch = mc * nld * nld * tensors.dtype.itemsize
-        chunk = max(256, (256 << 20) // per_patch)
-        return _map_cell_chunks(contract, cells, l2p, chunk=chunk)
-
-    P = (l2p[..., None] == jnp.arange(m + 1, dtype=l2p.dtype)).astype(
-        tensors.dtype)
-
-    def one(cells_p, P_p):
-        T = Tpad[cells_p]  # (mc, nld, nld)
-        TP = jnp.einsum("jlk,jkr->jlr", T, P_p)
-        return jnp.einsum("jlq,jlr->qr", P_p, TP)[:m, :m]
-
-    return jax.vmap(one)(cells, P)
+    # chunk over patches: the vmapped member-cell gather materialises
+    # (np, mc, nld, nld) — 8.3 GB at ldc3d nref=2; ~256 MB per
+    # sequential chunk
+    per_patch = mc * nld * nld * tensors.dtype.itemsize
+    chunk = max(256, (256 << 20) // per_patch)
+    return _map_cell_chunks(contract, cells, l2p, chunk=chunk)
 
 
 def patch_facet_tables(patchset, facets, space):
@@ -519,7 +501,7 @@ def patch_static_operators(patchset, form):
     from ..config import mg_store
 
     K_el, G_el = form._static_velocity_tensors()
-    # STORAGE dtype mg_store (f32 on TPU): at ldc3d nref=2 the fine
+    # STORAGE dtype mg_store: at ldc3d nref=2 the fine
     # level's K+G are (4913, 189, 189) — 5.8 GB resident in f64 — and
     # the factorisation PROMOTES back to f64 (config.mg_store: a
     # consistent relative-eps32 perturbation of the operator, the
@@ -535,13 +517,7 @@ def patch_static_operators(patchset, form):
 
 def make_patch_factor_parts(patchset):
     """factor_parts(static, N_el, params) -> batched factorisation of
-    nu K_p + gamma G_p + advect N_p + pad.
-
-    On accelerators the advection contraction runs in f32 (MXU): its
-    entries are O(|w| h^d), so the ~1e-7 relative rounding sits far
-    below the nu-scale viscous entries for any Re of interest, while
-    the gamma/nu-conditioned static parts stay exact f64."""
-    import jax
+    nu K_p + gamma G_p + advect N_p + pad."""
     import jax.numpy as jnp
 
     from ..solvers.batched_lu import get_factorization
@@ -559,9 +535,7 @@ def make_patch_factor_parts(patchset):
         ar = jnp.arange(A.shape[-1])
         A = A.at[:, ar, ar].add(static["pad_diag"].astype(A.dtype))
         if N_el is not None:
-            cdt = (A.dtype if jax.default_backend() == "cpu"
-                   else jnp.float32)
-            Np = contract_patch_tensors(patchset, N_el.astype(cdt))
+            Np = contract_patch_tensors(patchset, N_el)
             A = A + params["advect"] * Np.astype(A.dtype)
         return fs.factor(A)
 
@@ -599,9 +573,8 @@ def _gather_scatter(patchset, transposed=False):
     from the transposed dof table, so no on-device relayout happens.
 
     The batch-major path fetches d-VECTOR ROWS of the (ndof, d) view
-    when the patch slots pair up (scripts/gather_microbench.py: random
-    fetches cost ~16 cycles EACH regardless of width, so halving/
-    thirding the fetch count halves/thirds the index-op time)."""
+    when the patch slots pair up, halving/thirding the number of random
+    fetches."""
     import jax.numpy as jnp
 
     from ..utils.scatter import default_use_tables, make_gather_sum
@@ -655,24 +628,21 @@ def _gather_scatter(patchset, transposed=False):
 
 
 def _structured_fs():
-    """Patch-minor factorisation for the sliced apply: respects the
-    ALFI_TPU_PATCH_APPLY dtype choice but forces the transposed
-    (m, m, np) layout the slice gather produces.  None when the active
-    factorisation has no patch-minor form (CPU native LU)."""
+    """Factorisation for the sliced apply, which works on patch-minor
+    (m, np) vectors: patch-minor explicit inverses, in the active
+    explicit-inverse variant's dtype when there is one (an LU solve per
+    apply on transposed vectors measured slower on the H100, PERF.md)."""
     from ..solvers.batched_lu import (
         _ExplicitInverseFactorization,
         get_factorization,
     )
 
     base = get_factorization("patch")
-    if getattr(base, "batch_axis", 0) == -1:
-        return base
     if isinstance(base, _ExplicitInverseFactorization):
+        if base.transposed:
+            return base
         return _ExplicitInverseFactorization(
-            base.apply_dtype, transposed=True,
-            promote=getattr(base, "promote", False))
-    # CPU native-LU base (no patch-minor form): explicit f64 inverses,
-    # the same construction the TPU default uses
+            base.apply_dtype, transposed=True, promote=base.promote)
     return _ExplicitInverseFactorization(None, transposed=True)
 
 
@@ -680,41 +650,31 @@ def build_patch_solver(patchset):
     """Device closures over a PatchSet:
 
     factor(tensors (nc, nld, nld)) -> batched factorisation of all patch
-                                      matrices (platform-appropriate)
+                                      matrices
     apply(fac, r_flat (ndft,))     -> additive-Schwarz application
     """
-    import jax
-
     from ..solvers.batched_lu import get_factorization
     from . import structured
 
-    # sliced fast path: affine patch tables on structured meshes turn
-    # the gather/scatter into dense slices (mg/structured.py).  On CPU
-    # the production factorisation is the native LU (no patch-minor
-    # form) and gathers are cheap — opt in explicitly there.
-    want_struct = (structured.struct_patch_enabled()
-                   and (jax.default_backend() != "cpu"
-                        or os.environ.get("ALFI_TPU_STRUCT_PATCH")
-                        == "1"))
-    if want_struct:
-        layout = structured.detect(patchset)
-        fs_t = _structured_fs() if layout is not None else None
-        if layout is not None and fs_t is not None:
-            structured.reorder_patchset(patchset, layout.order)
-            gather, scatter = structured.gather_scatter(patchset,
-                                                        layout)
-            fs = fs_t
-            patchset._fs = fs
+    # sliced path: affine patch tables on structured meshes turn the
+    # gather/scatter into dense slices (mg/structured.py)
+    layout = (structured.detect(patchset)
+              if structured.struct_patch_enabled() else None)
+    if layout is not None:
+        structured.reorder_patchset(patchset, layout.order)
+        patchset.layout = layout
+        gather, scatter = structured.gather_scatter(patchset, layout)
+        fs = _structured_fs()
+        patchset._fs = fs
 
-            def factor(tensors):
-                return fs.factor(
-                    assemble_patch_matrices(patchset, tensors))
+        def factor(tensors):
+            return fs.factor(assemble_patch_matrices(patchset, tensors))
 
-            def apply(lufac, r_flat):
-                xp = fs.solve_t(lufac, gather(r_flat))
-                return scatter(xp, r_flat.dtype)
+        def apply(lufac, r_flat):
+            xp = fs.solve_t(lufac, gather(r_flat))
+            return scatter(xp, r_flat.dtype)
 
-            return factor, apply
+        return factor, apply
 
     fs = get_factorization("patch")
     patchset._fs = fs
@@ -750,17 +710,17 @@ def woodbury_effective_gamma(gamma, S, safety=0.03, eps32=1.2e-7,
 
 
 def build_patch_solver_woodbury(patchset, Bt_cells):
-    """gamma-split patch solver, entirely in f32 (the TPU fast path).
+    """gamma-split patch solver, entirely in f32 (ALFI_TPU_WOODBURY=1).
 
     The AL patch operator A = M + gamma B B^T (M = viscous+advection,
     B = static grad-div factors) is singular to f32 round-off at the
     default gamma=1e4, so direct f32 factorisation fails (NaNs at
-    Re>=100 on v5e).  Woodbury moves gamma into a 1/gamma*I shift:
+    Re>=100).  Woodbury moves gamma into a 1/gamma*I shift:
 
         A^-1 = M^-1 - (M^-1 B) (I/gamma + B^T M^-1 B)^-1 B^T M^-1
 
     where every factor is gamma-independently conditioned — native f32
-    batched LU + MXU matmuls, no f64 emulation in the hot loop.
+    batched LU + matmuls, no f64 in the hot loop.
 
     factor(tensors_M (nc,nld,nld), gamma) -> (Mlu, Clu, Y, B)
     apply(fac, r_flat) -> additive application

@@ -2,11 +2,10 @@
 
 The additive star-patch apply is three steps: gather the patch-local
 residual rows, batched-GEMV against the stored patch inverses, scatter
-the correction back.  On TPU the gathers dominate by two orders of
-magnitude (random fetches cost ~8-16 cycles each;
-results/logs/gather_microbench.log, roofline_patches.log — the
-reference's equivalent loop is PCPatch's scatter/solve/gather,
-/root/reference/alfi/solver.py:313-344 + relaxation.py).
+the correction back (the reference's equivalent loop is PCPatch's
+scatter/solve/gather, /root/reference/alfi/solver.py:313-344 +
+relaxation.py).  The gathers are random fetches; on structured meshes
+they can be dense slices instead.
 
 On the generated benchmark meshes the geometric entity numbering
 (mesh/renumber.py) makes the patch dof table AFFINE over the interior
@@ -53,7 +52,11 @@ import numpy as np
 
 
 def struct_patch_enabled():
-    return os.environ.get("ALFI_TPU_STRUCT_PATCH", "1") == "1"
+    """Whether patch solvers take the sliced path where :func:`detect`
+    finds one: opt in with ALFI_TPU_STRUCT_PATCH=1.  Off by default: on
+    the GPU it was slower with either patch factor (PERF.md, backend
+    A/B)."""
+    return os.environ.get("ALFI_TPU_STRUCT_PATCH") == "1"
 
 
 class _Block:
@@ -296,8 +299,6 @@ def detect(patchset):
     Pass 2 (3D lattices): per-parity classes (z%2, y%2, x%2) — the
     structured tet lattice has translation-equivalent stars only
     within a parity class."""
-    if not struct_patch_enabled():
-        return None
     seeds = getattr(patchset, "seed_points", None)
     m, d = patchset.m, patchset.space_d
     if (seeds is None or seeds.ndim != 2 or seeds.shape[1] not in (2, 3)

@@ -3,7 +3,7 @@
 The reference's parallel story is DMPlex mesh partitioning with ghost
 overlap (vertex-overlap 1 for PkP0, 2 for SV,
 /root/reference/alfi/solver.py:604-605,661-662), refined per MG level, with
-VecScatter halo exchange and allreduce dots.  The TPU-native formulation
+VecScatter halo exchange and allreduce dots.  The JAX-native formulation
 built here:
 
 * partition the COARSEST mesh's cells into ``nb`` contiguous blocks

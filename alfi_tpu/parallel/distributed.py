@@ -1,6 +1,6 @@
 """The flagship almg Newton step, distributed with shard_map.
 
-TPU-native re-design of the reference's MPI execution model (SURVEY.md
+JAX-native re-design of the reference's MPI execution model (SURVEY.md
 §2d/§5.8): DMPlex overlap partitions + VecScatter halo exchange +
 allreduce dots become
 
@@ -608,13 +608,15 @@ class DistributedSolver:
         r = jnp.einsum("cij,cj->ci", T, vloc)
         r = jnp.where(lv["owned"][:, None], r, 0.0)
         L1 = v.shape[0]
+        # the dc32 smoother hands f32 vectors to f64 tensors: cast the
+        # contributions to the vector's dtype explicitly
         out = jnp.zeros((L1 * v.shape[1],), dtype=v.dtype)
-        out = out.at[lv["rows"]].add(r)
+        out = out.at[lv["rows"]].add(r.astype(v.dtype))
         if fctx is not None:
             fl, Jfo = fctx
             vf = v0[fl["frows"]]
             rf = jnp.einsum("fij,fj->fi", Jfo, vf)
-            out = out.at[fl["frows"]].add(rf)
+            out = out.at[fl["frows"]].add(rf.astype(v.dtype))
         out = out.reshape(v.shape)
         out = self._exchange(lv, out)
         return mask * out + (1.0 - mask) * v

@@ -1,7 +1,7 @@
 """Device-mesh construction for the distributed solver (SURVEY.md §5.8).
 
 The reference's ONLY parallelism is MPI domain decomposition of the mesh
-(SURVEY.md §2d — no TP/PP/EP exists in the reference); its TPU-native
+(SURVEY.md §2d — no TP/PP/EP exists in the reference); its JAX-native
 analogue is the shard_map block decomposition in
 ``parallel/distributed.py``.  An earlier GSPMD prototype (dof-blocked
 NamedShardings over the global step functions) lived here; it was

@@ -1,6 +1,6 @@
 """Flow-problem abstraction.
 
-TPU-native analogue of the reference's NavierStokesProblem
+JAX-native analogue of the reference's NavierStokesProblem
 (/root/reference/alfi/problem.py:5-58): a problem supplies the base mesh,
 boundary conditions, characteristic scales, optional forcing (MMS) and
 optional patch-sweep direction; the solver supplies everything else.

@@ -1,21 +1,28 @@
-"""Batched dense LU with partial pivoting in pure elementwise JAX ops.
+"""Batched dense factorisations for the AL patch / coarse operators.
 
-TPU XLA implements its LuDecomposition expansion only for f32, but the AL
-patch/coarse operators have condition ~ gamma/nu * h^-2 (1e7+ at the
-default gamma=1e4), far beyond f32 factorisation accuracy — the patch
-smoother silently collapses (observed: Newton divergence at Re=100 on
-v5e).  This module provides the f64 path: factorisation and triangular
-solves built from adds/multiplies/gathers only, which XLA supports in
-(emulated) f64 on TPU.  Shapes: A (..., m, m); everything vmaps/batches
-over the leading axes.  Pivoting is partial (row) pivoting, matching
-LAPACK getrf behaviour for our use.
+The AL operators have condition ~ gamma/nu * h^-2 (1e7+ at the default
+gamma=1e4), far beyond f32 factorisation accuracy, so the production
+factorisations are f64: XLA's native batched LU on every supported
+platform (backend.py).  The small patch matrices are applied as
+explicit inverses (the reference's ``patch_pc_patch_dense_inverse``),
+the single large ones by LU solves.
+
+The elementwise LU below (factorisation and triangular solves built from
+adds/multiplies/gathers only) is kept as the ALFI_TPU_PATCH_DTYPE=lu64
+arm.  Shapes: A (..., m, m); everything vmaps/batches over the leading
+axes.  Pivoting is partial (row) pivoting, matching LAPACK getrf.
 """
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+from ..backend import check_platform
+from ..config import real_dtype
 
 
 def lu_factor_batched(A):
@@ -109,15 +116,10 @@ def lu_solve_batched_multi(lu_perm, B):
     return lax.fori_loop(0, m, bwd, y)
 
 
-def has_native_f64_lu():
-    """True when jax.scipy.linalg.lu_factor works in f64 on the default
-    backend (CPU yes; TPU no)."""
-    return jax.default_backend() == "cpu"
-
-
 class _ScipyFactorization:
-    """Native XLA LU in a fixed dtype (f64 on CPU, optionally f32 on
-    accelerators for speed-over-accuracy experiments)."""
+    """Native XLA LU (LAPACK getrf on the CPU, cuSOLVER/cuBLAS batched
+    getrf on the GPU) in a fixed dtype: f64 by default, f32 only as the
+    ALFI_TPU_PATCH_DTYPE=f32 speed-over-accuracy arm."""
 
     def __init__(self, dtype):
         self.dtype = dtype
@@ -134,26 +136,8 @@ class _ScipyFactorization:
         return x[..., 0].astype(b.dtype)
 
 
-class _QRFactorization:
-    """Batched QR solve — the f64 path on TPU, where XLA implements Qr /
-    TriangularSolve (but not LuDecomposition) in f64.  ~2x the flops of
-    LU but native-speed and unconditionally stable for the nonsymmetric
-    advective patch operators."""
-
-    def factor(self, A):
-        Q, R = jnp.linalg.qr(A)
-        return Q, R
-
-    def solve(self, fac, b):
-        Q, R = fac
-        y = jnp.einsum("...ji,...j->...i", Q, b)
-        x = jax.scipy.linalg.solve_triangular(R, y[..., None],
-                                              lower=False)
-        return x[..., 0]
-
-
 class _CustomF64Factorization:
-    """Elementwise-ops f64 LU (works on any backend)."""
+    """Elementwise-ops f64 LU (the ALFI_TPU_PATCH_DTYPE=lu64 arm)."""
 
     def factor(self, A):
         return lu_factor_batched(A)
@@ -162,73 +146,42 @@ class _CustomF64Factorization:
         return lu_solve_batched(fac, b)
 
 
-class _QRInverseFactorization:
-    """Explicit f64 inverse via one-time QR + blocked matrix-rhs trsm;
-    every apply is then a single (emulated-f64) GEMV.  For the MG
-    coarse grid on TPU: _QRFactorization's vector-rhs TriangularSolve
-    serialises its N back-substitution steps INSIDE every coarse apply
-    (measured ~18 ms at N=2178 — a third of the whole FMG cycle),
-    while apply-by-inverse has the same ~kappa*eps forward-error order
-    and streams at MXU speed."""
-
-    def factor(self, A):
-        Q, R = jnp.linalg.qr(A)
-        return jax.scipy.linalg.solve_triangular(R, Q.T, lower=False)
-
-    def solve(self, fac, b):
-        return fac @ b
-
-
 def apply_transposed_xla(fac, rp):
     """Batched GEMV of PATCH-MINOR inverses: out (m, np) = sum_j
     fac[i, j, :] * rp[j, :] as an elementwise multiply + reduce over j,
     which XLA fuses into a single stream over ``fac`` without
     relayouting to batch-major (an einsum/dot_general with the batch
     dim minor-most may transpose operands first).  The patch-minor
-    layout puts the large patch axis on lanes, so XLA's (8, 128)
-    minor-dim tiling pads negligibly (np >> 128) — batch-major (np, m,
-    m) factors with m ~ 14-50 are physically 2.5-9x their logical bytes
-    and the bandwidth-bound apply would mostly stream padding."""
+    layout puts the large patch axis minor-most, the layout the
+    structured sliced gather produces."""
     npat = rp.shape[-1]
     npad = fac.shape[-1]
     if npad != npat:
         rp = jnp.pad(rp, ((0, 0), (0, npad - npat)))
-    dt = jnp.float32 if fac.dtype == jnp.bfloat16 else fac.dtype
-    out = jnp.sum(fac.astype(dt) * rp[None, :, :].astype(dt), axis=1)
+    out = jnp.sum(fac * rp[None, :, :], axis=1)
     return out[:, :npat]
 
 
 class _ExplicitInverseFactorization:
     """Dense patch INVERSES — the reference's own PkP0 patch trick
     (``patch_pc_patch_dense_inverse``, /root/reference/alfi/solver.py:599-602):
-    pay one elementwise f64 LU + multi-rhs solve at factor time, then
-    every application is a single batched matvec (the hot-loop shape the
-    MXU wants).  Forward error of apply-by-inverse is ~kappa*eps64, the
-    same order as an LU solve — and identical to what PETSc's dense
-    inverse does.
+    pay one native f64 LU + multi-rhs solve at factor time, then every
+    application is a single batched matvec.  Forward error of
+    apply-by-inverse is ~kappa*eps64, the same order as an LU solve —
+    and identical to what PETSc's dense inverse does.
 
     ``apply_dtype=f32``: keep the f64 factorisation (the
     gamma-conditioned cancellation lives there) but run the hot-loop
-    matvec on the native-f32 MXU instead of in emulated f64.  The patch
-    sweep is a PRECONDITIONER inside (flexible) FGMRES, which tolerates
-    an inexact application by construction; iteration-count parity is
-    the acceptance gate (measured on the high-Re sweeps).
+    matvec in f32.  The patch sweep is a PRECONDITIONER inside
+    (flexible) FGMRES, which tolerates an inexact application by
+    construction; iteration-count parity is the acceptance gate.
 
     ``transposed=True``: store the inverses PATCH-MINOR, (m, m, np)
-    instead of (np, m, m).  XLA tiles the two minor dims of an f32
-    array to (8, 128), so batch-major inverses with m ~ 14-50 are
-    physically 2.5-9x their logical bytes and the bandwidth-bound apply
-    streams mostly padding; patch-minor layout makes the padding
-    negligible (np >> 128).  See apply_transposed_xla.  The apply
-    takes/returns patch-minor vectors via :meth:`solve_t` (the hot
-    path, wired through mg/patches.build_patch_solver); :meth:`solve`
-    keeps the batch-major interface for the remaining callers.
-
-    A fused Pallas kernel for this contraction existed through round 4;
-    its post-fix hardware run (results/logs/roofline_patches.log,
-    round-5 closure entry: 4.27 ms/apply vs 1.19-1.49 ms for the XLA
-    struct path at identical shapes) retired it — the XLA
-    multiply-reduce IS the fast formulation here."""
+    instead of (np, m, m), the layout the structured sliced gather
+    produces (mg/structured.py).  See apply_transposed_xla.  The apply
+    takes/returns patch-minor vectors via :meth:`solve_t`;
+    :meth:`solve` keeps the batch-major interface for the remaining
+    callers."""
 
     def __init__(self, apply_dtype=None, transposed=False,
                  promote=False):
@@ -245,24 +198,20 @@ class _ExplicitInverseFactorization:
         m = A.shape[-1]
 
         def one(Ac):
-            lu = lu_factor_batched(Ac)
-            inv = lu_solve_batched_multi(
-                lu, jnp.broadcast_to(jnp.eye(m, dtype=Ac.dtype),
-                                     Ac.shape))
+            eye = jnp.broadcast_to(jnp.eye(m, dtype=Ac.dtype), Ac.shape)
+            inv = jax.scipy.linalg.lu_solve(
+                jax.scipy.linalg.lu_factor(Ac), eye)
             if self.apply_dtype is not None:
                 inv = inv.astype(self.apply_dtype)
             return inv
 
-        # sequential patch chunks: the elementwise-LU while loop plus
-        # the m-RHS inverse solve hold several (np, m, m) buffers at
-        # once — a single 7.2 GB AllocateBuffer at ldc3d nref=2
-        # (np=4913, m=189; round-5 OOM log).  ~256 MB of working set
-        # per chunk, 2D patch batches (m ~ 14-62) stay unchunked.
+        # sequential patch chunks of ~256 MB working set each: the
+        # factor plus the m-RHS inverse solve hold several (np, m, m)
+        # buffers at once (7.2 GB in one buffer at ldc3d nref=2, np=4913,
+        # m=189), and SV 3D macrostar patches reach m ~ 1600, so the
+        # chunk floor is one patch.  2D batches (m ~ 14-62) stay whole.
         from ..fem.nsforms import _map_cell_chunks
 
-        # floor 1, not a fixed 64: SV 3D macrostar patches reach
-        # m ~ 1600 where even 64 patches of working set is ~10 GB
-        # (sv_ldc3d k=3 nref=1 OOM log, round 5)
         per = m * m * A.dtype.itemsize * 8
         chunk = max(1, (256 << 20) // per)
         inv = _map_cell_chunks(one, A, chunk=chunk)
@@ -272,14 +221,10 @@ class _ExplicitInverseFactorization:
 
     def solve_t(self, Ainv, rp):
         """Patch-minor apply: rp (m, np) -> (m, np)."""
-        # bf16 factors: only the stored inverses are bf16 — the
-        # residual and the accumulation stay f32
         if self.promote:
             return apply_transposed_xla(Ainv, rp)
-        rdt = (jnp.float32 if Ainv.dtype == jnp.bfloat16
-               else Ainv.dtype)
         return apply_transposed_xla(
-            Ainv, rp.astype(rdt)).astype(rp.dtype)
+            Ainv, rp.astype(Ainv.dtype)).astype(rp.dtype)
 
     def solve(self, Ainv, b):
         if self.transposed:
@@ -295,72 +240,48 @@ class _ExplicitInverseFactorization:
 
 
 _fs = {}
+_PATCH_DTYPE = ("", "f32", "lu64", "lu")
+_PATCH_APPLY = ("", "f32", "f32t", "t", "f32s", "f32st")
 
 
 def get_factorization(kind="dense"):
-    """Platform-appropriate dense factorisation for the ill-conditioned
-    AL operators.  CPU: native f64 LU.  TPU (no native f64
-    LuDecomposition):
-
-    * ``kind="patch"`` — large batches of SMALL matrices (the patch
-      smoother/transfer hot path): explicit dense inverses built by the
-      elementwise-ops f64 LU (the reference's own PkP0 dense-inverse
-      trick), so every smoother application is one batched matvec.
-      Measured on v5e at (4225, 14, 14): LU factor 53 ms vs 671 ms for
-      the batched f64 QR, apply ~3 ms vs 78 ms
-      (scripts/profile_patches.py).
-    * ``kind="dense"`` — ONE large matrix (coarse grid, lu/allu modes):
-      batched f64 QR; the elementwise LU would serialise N pivot steps.
+    """Dense f64 factorisation for the ill-conditioned AL operators:
+    XLA's native batched LU.  ``kind="patch"`` (the many small patch
+    matrices) applies it as explicit inverses, one batched matvec per
+    application; ``"dense"`` (lu/allu modes, AMG coarse) and
+    ``"coarse"`` (the MG coarse grid) are single large matrices, applied
+    by LU solves.
 
     Overrides: ALFI_TPU_PATCH_DTYPE=f32 (f32 LU everywhere, unsafe at
-    high gamma/Re), =lu64 (elementwise f64 LU everywhere), =inv64
-    (explicit inverses everywhere — only sane for patch-sized
-    matrices)."""
-    if kind not in _fs:
-        import os
+    high gamma/Re), =lu64 (elementwise f64 LU everywhere), =lu (native
+    f64 LU solve per patch application).  ALFI_TPU_PATCH_APPLY picks
+    the explicit patch inverses' apply variant:
 
-        env = os.environ.get("ALFI_TPU_PATCH_DTYPE")
+    * f32   — f32 batch-major matvec
+    * f32t  — f32 patch-minor layout, XLA multiply-reduce
+    * t     — f64 patch-minor (the layout effect in isolation)
+    * f32s / f32st — f32-STORED inverses, f64-COMPUTED matvec (dtype
+      promotion): halved factor stream (the config.mg_store pattern)
+    """
+    if kind not in _fs:
+        check_platform()
+        env = os.environ.get("ALFI_TPU_PATCH_DTYPE", "")
+        app = os.environ.get("ALFI_TPU_PATCH_APPLY", "")
+        # a typo would silently pick another mode — refuse instead
+        for name, val, allowed in (("PATCH_DTYPE", env, _PATCH_DTYPE),
+                                   ("PATCH_APPLY", app, _PATCH_APPLY)):
+            if val not in allowed:
+                raise ValueError("ALFI_TPU_%s=%r: expected one of %s" % (
+                    name, val, ", ".join(map(repr, allowed))))
         if env == "f32":
             _fs[kind] = _ScipyFactorization(jnp.float32)
         elif env == "lu64":
             _fs[kind] = _CustomF64Factorization()
-        elif env == "inv64":
-            _fs[kind] = _ExplicitInverseFactorization()
-        elif has_native_f64_lu():
-            from ..config import real_dtype
-
-            _fs[kind] = _ScipyFactorization(real_dtype)
-        elif kind == "patch":
-            # ALFI_TPU_PATCH_APPLY: f64 factor always; apply variants
-            #   f32   — f32 batch-major einsum
-            #   f32t  — f32 patch-minor layout, XLA multiply-reduce
-            #   bf16t — bf16-STORED patch-minor inverses (half the HBM
-            #       stream), f32 residual + accumulation; iteration-
-            #       count parity on the high-Re sweeps is the
-            #       acceptance gate
-            #   t     — f64 patch-minor (layout effect in isolation)
-            #   f32s / f32st — f32-STORED inverses, f64-COMPUTED GEMV
-            #       (dtype promotion): halved factor stream with EXACT
-            #       iteration parity (the config.mg_store pattern)
-            # (the retired f32p/bf16p Pallas modes: see the round-5
-            # closure entry in results/logs/roofline_patches.log)
-            app = os.environ.get("ALFI_TPU_PATCH_APPLY", "")
-            if app not in ("", "f32", "f32t", "bf16t", "t", "f32s",
-                           "f32st"):
-                # a typo (e.g. bare "bf16") would silently pick a mode
-                # that truncates the residual — refuse instead
-                raise ValueError(
-                    "ALFI_TPU_PATCH_APPLY=%r: expected one of "
-                    "'', f32, f32t, bf16t, t, f32s, f32st" % app)
-            dt = (jnp.float32 if app.startswith("f32")
-                  else jnp.bfloat16 if app.startswith("bf16") else None)
+        elif kind == "patch" and env != "lu":
+            dt = jnp.float32 if app.startswith("f32") else None
             _fs[kind] = _ExplicitInverseFactorization(
-                dt, transposed=app in ("f32t", "bf16t", "t", "f32st"),
+                dt, transposed=app in ("f32t", "t", "f32st"),
                 promote=app in ("f32s", "f32st"))
-        elif kind == "coarse":
-            # ONE matrix applied many times per cycle: pay the blocked
-            # inverse once, GEMV thereafter
-            _fs[kind] = _QRInverseFactorization()
         else:
-            _fs[kind] = _QRFactorization()
+            _fs[kind] = _ScipyFactorization(real_dtype)
     return _fs[kind]

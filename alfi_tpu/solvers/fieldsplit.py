@@ -1,6 +1,6 @@
 """Block-Schur preconditioner for the AL Navier-Stokes Jacobian.
 
-Explicit TPU-native block algebra replacing PETSc PCFieldSplit with
+Explicit JAX-native block algebra replacing PETSc PCFieldSplit with
 ``pc_fieldsplit_type schur, factorization full, precondition user``
 (/root/reference/alfi/solver.py:405-421) and the user Schur PC
 ``DGMassInv`` = -(nu+gamma) Mp^{-1} (/root/reference/alfi/solver.py:15-38).
@@ -77,7 +77,7 @@ class LSCSchurPC(SchurPC):
         S^{-1} ~= -(B B^T)^{-1} (B A B^T) (B B^T)^{-1}
 
     The reference applies each (B B^T)^{-1} as one hypre AMG V-cycle
-    (preonly); the TPU-native analogue here is a short matrix-free CG on
+    (preonly); the JAX-native analogue here is a short matrix-free CG on
     L = B B^T (L assembled nowhere; B/B^T ride the same element-tensor
     kernels as everything else).  For enclosed flows the constant
     pressure lies in null(B^T) = null(L); both the CG and the outer

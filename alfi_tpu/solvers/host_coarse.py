@@ -2,15 +2,15 @@
 
 The reference's coarse grid leaves the parallel compute domain: it is
 gathered onto a size/24 subcommunicator and solved by SuperLU_dist on
-CPUs (/root/reference/alfi/solver.py:354-377).  The TPU-native analogue
+CPUs (/root/reference/alfi/solver.py:354-377).  The JAX-native analogue
 of that telescope is a ``jax.pure_callback`` to the HOST: element
 tensors and the rhs cross to CPU, scipy's SuperLU factors the assembled
 sparse operator once per Newton step (cached by a device-computed
 fingerprint), and only (N,)-vector solves ride the PCIe round trip in
 the cycle hot loop.
 
-This removes the dense-coarse memory cap (an N^2 f64 dense factor tops
-out around N ~ 13k on one v5e): reference bfs coarse meshes (e.g.
+This removes the dense-coarse memory cap (an N^2 f64 dense factor grows
+quadratically with the coarse grid): reference bfs coarse meshes (e.g.
 bfs2d coarse06, ~26k velocity dofs at k=2 on the base mesh) now work as
 hierarchy bases.  Exactness: SuperLU runs in f64 on the host, so the
 coarse solve is as exact as the reference's.

@@ -6,7 +6,7 @@ Replaces the PETSc Mat/LU machinery of the reference
 * matrix-free Jacobian action via ``jax.linearize`` of the residual (the
   reference's MatNest matvec becomes one fused XLA kernel),
 * dense global Jacobian assembly from per-cell element tensors — the
-  TPU equivalent of a direct factorisation: gathered-to-one-device LU
+  JAX equivalent of a direct factorisation: gathered-to-one-device LU
   (full system for "lu", velocity block for "allu" and the MG coarse grid,
   the telescoping analogue of /root/reference/alfi/solver.py:354-378),
 * BC handling by row/col elimination with identity diagonal.
@@ -123,7 +123,7 @@ def assemble_dense_graddiv_factors(form, mask_u):
     return mask_u.reshape(-1)[:, None] * B
 
 
-def woodbury_dense_factor(M, B, gamma, qr_threshold=8192):
+def woodbury_dense_factor(M, B, gamma):
     """Arrays-only factor state for the f32 gamma-split dense solve
     (see mg/patches.py build_patch_solver_woodbury); pairs with
     :func:`woodbury_dense_apply` so the state can cross jit boundaries
@@ -132,8 +132,10 @@ def woodbury_dense_factor(M, B, gamma, qr_threshold=8192):
     M32, B32 = M.astype(dt), B.astype(dt)
     from ..mg.patches import woodbury_effective_gamma
 
-    fac = {"Minv": _explicit_inverse32(M32, qr_threshold)}
-    Y = _woodbury_msolve32(fac, B32)
+    Minv = jax.scipy.linalg.lu_solve(jax.scipy.linalg.lu_factor(M32),
+                                     jnp.eye(M32.shape[0], dtype=dt))
+    fac = {"Minv": Minv}
+    Y = Minv @ B32
     R = B.shape[1]
     S = B32.T @ Y
     geff = woodbury_effective_gamma(gamma, S)
@@ -145,7 +147,7 @@ def woodbury_dense_factor(M, B, gamma, qr_threshold=8192):
 
 def woodbury_dense_apply(fac, b):
     dt = jnp.float32
-    y = _woodbury_msolve32(fac, b.astype(dt))
+    y = fac["Minv"] @ b.astype(dt)
     s = jax.scipy.linalg.lu_solve(fac["Clu"], fac["B32"].T @ y)
     return (y - fac["Y"] @ s).astype(b.dtype)
 
@@ -157,109 +159,9 @@ def woodbury_dense_closure(M, B, gamma):
     return lambda b: woodbury_dense_apply(fac, b)
 
 
-def woodbury_refined_dense_factor(M, B, gamma, qr_threshold=8192):
-    """f64-quality coarse factor of A = M + gamma B B^T without an
-    f64-emulated factorisation (the TPU fast path for the MG coarse
-    grid, replacing the ~600 ms batched f64 QR per Newton step):
-
-    * equilibrated f32 LU of M (gamma-independent conditioning) — QR
-      above N ~ 8k where XLA's blocked f32 LuDecomposition overflows
-      scoped vmem on v5e,
-    * f64 capacitance C = I/gamma + B^T M^{-1} B inverted once by
-      explicit QR (small: r = nc*q rows), so no gamma clamp is needed
-      and kappa(C) ~ gamma |S| is harmless,
-    * iterative-refinement in the apply against the exact f64 dense A
-      (matvec only — cheap), recovering f64 forward accuracy as long as
-      the f32 M-solve is a contraction (kappa_equil(M) << 1/eps32).
-
-    Returns an arrays-only dict (structure encodes the LU-vs-QR path)
-    for :func:`woodbury_refined_dense_apply`.
-    """
-    dt = jnp.float32
-    # symmetric equilibration of M: unit row/col inf-norms
-    d = 1.0 / jnp.sqrt(jnp.max(jnp.abs(M), axis=1) + 1e-300)
-    Ms32 = (d[:, None] * M * d[None, :]).astype(dt)
-    fac = {"Minv": _explicit_inverse32(Ms32, qr_threshold)}
-    fac.update(d=d, M=M, B=B, gamma=gamma)
-
-    def _msolve32(b32):
-        return _woodbury_msolve32(fac, b32)
-
-    Y = d[:, None] * _msolve32(
-        (d[:, None] * B).astype(dt)).astype(M.dtype)  # M^{-1} B f64
-    S = B.T @ Y
-    R = B.shape[1]
-    # gamma=0 (graddiv study): 1/gamma -> huge diagonal makes
-    # C^{-1} ~ 0, so the solve degenerates to M^{-1} b — exactly A^{-1}
-    inv_gamma = jnp.where(gamma > 0.0, 1.0 / jnp.maximum(gamma, 1e-300),
-                          1e300)
-    C = jnp.eye(R, dtype=M.dtype) * inv_gamma + S
-    # one-time explicit f64 inverse via QR (native Qr/TriangularSolve
-    # with a matrix rhs — blocked, unlike the elementwise LU whose 2R
-    # sequential pivot steps would run inside EVERY coarse solve)
-    Qc, Rc = jnp.linalg.qr(C)
-    Cinv = jax.scipy.linalg.solve_triangular(Rc, Qc.T, lower=False)
-    fac.update(Y=Y, Cinv=Cinv)
-    return fac
-
-
-def _explicit_inverse32(A32, qr_threshold=8192):
-    """One-time explicit f32 inverse, so every downstream solve is a
-    single GEMM/GEMV on the MXU.  XLA's TriangularSolve with a VECTOR
-    rhs runs its N pivot steps sequentially on TPU (measured 18 ms per
-    coarse apply at N=2178, ~1/3 of the whole FMG cycle); the matrix-
-    rhs trsm used HERE is blocked and runs once per factorisation.
-    Forward error of apply-by-inverse is ~kappa*eps32 — the same order
-    as the triangular solves it replaces, and the refined path wraps
-    f64 iterative refinement around it either way."""
-    if A32.shape[0] > qr_threshold:
-        # XLA's blocked f32 LuDecomposition overflows scoped vmem on
-        # v5e above N ~ 8k (measured: N=13220 exceeds the 16M limit);
-        # QR is blocked differently and survives
-        Qm, Rm = jnp.linalg.qr(A32)
-        return jax.scipy.linalg.solve_triangular(Rm, Qm.T, lower=False)
-    lu = jax.scipy.linalg.lu_factor(A32)
-    return jax.scipy.linalg.lu_solve(
-        lu, jnp.eye(A32.shape[0], dtype=A32.dtype))
-
-
-def _woodbury_msolve32(fac, b32):
-    if "Minv" in fac:
-        return fac["Minv"] @ b32
-    if "Mlu" in fac:  # legacy factor dicts (pre-explicit-inverse)
-        return jax.scipy.linalg.lu_solve(fac["Mlu"], b32)
-    return jax.scipy.linalg.solve_triangular(
-        fac["Rm"], fac["Qm"].T @ b32, lower=False)
-
-
-def woodbury_refined_dense_apply(fac, b, n_ir=3):
-    d, M, B, gamma = fac["d"], fac["M"], fac["B"], fac["gamma"]
-    dt = jnp.float32
-
-    def base(bb):
-        y = d * _woodbury_msolve32(fac, (d * bb).astype(dt)).astype(
-            bb.dtype)
-        s = fac["Cinv"] @ (B.T @ y)
-        return y - fac["Y"] @ s
-
-    def Amv(x):
-        # exact f64 A x without forming the dense gamma B B^T
-        return M @ x + gamma * (B @ (B.T @ x))
-
-    x = base(b)
-    for _ in range(n_ir):
-        x = x + base(b - Amv(x))
-    return x
-
-
-def woodbury_refined_dense_closure(M, B, gamma, n_ir=3):
-    fac = woodbury_refined_dense_factor(M, B, gamma)
-    return lambda b: woodbury_refined_dense_apply(fac, b, n_ir=n_ir)
-
-
 def lu_solve_closure(A):
-    """Factor once with the platform factorisation (native f64 LU on
-    CPU, batched f64 QR on TPU), return x -> A^{-1} x on flat vectors."""
+    """Factor once with the native f64 LU (batched_lu.get_factorization),
+    return x -> A^{-1} x on flat vectors."""
     from .batched_lu import get_factorization
 
     fs = get_factorization()

@@ -239,8 +239,7 @@ class ShakibSUPG:
         the hand-derived product-rule Jacobian in
         :meth:`_vet_supg_analytic`: jacfwd's 42-wide tangent batch
         through this kernel materialises O(nc*nt*nq) intermediates
-        (measured 1.8-22 GB at the ldc3d north-star shapes — the
-        round-3/4 TPU compile OOMs), while the analytic form keeps
+        (1.8-22 GB at the ldc3d [P2+FB]^3 shapes), while the analytic form keeps
         every intermediate at O(nc*nq*nl) with q-contracted matmuls.
         GLS and Turek-coefficient variants keep the jacfwd derivation
         (their test coverage is small-mesh)."""
@@ -277,10 +276,9 @@ class ShakibSUPG:
                 chunk = int(env)
             else:
                 # ~24 MB of (chunk, nq, nl, d) working set per chunk:
-                # the fixed 2048 default crashed the TPU worker at
-                # ldc3d nref=2 shapes (nq = 125; isolated by
-                # scripts/probe_f3t2.py, chunk = 512 passes); 2D rules
-                # keep the old 2048
+                # a fixed 2048 is too large a working set at ldc3d
+                # nref=2 shapes (nq = 125; chunk = 512 passes); 2D
+                # rules keep 2048
                 tvv = self.form.tab_v
                 per = tvv.w.shape[0] * tvv.nloc * self.form.dim * 8
                 chunk = min(2048, max(256, (24 << 20) // per))

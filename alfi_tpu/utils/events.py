@@ -1,6 +1,6 @@
 """Lightweight event timing registry.
 
-TPU-native stand-in for PETSc's event logging
+JAX-native stand-in for PETSc's event logging
 (/root/reference/alfi/driver.py:77-92,
 /root/reference/alfi/transfer.py:186-192 @timed_function): named
 wall-clock accumulators around device computations (timers call

@@ -1,15 +1,12 @@
-"""Scatter-add as gather+sum — the TPU formulation of FEM accumulation.
+"""Scatter-add as gather+sum for FEM accumulation.
 
-Measured on v5e (docs/DESIGN.md): an in-graph XLA scatter-add costs ~8 ms
-at assembly shapes while gathers of any count are essentially free, so
-every hot-loop ``zeros.at[idx].add(vals)`` is transposed into a
-precomputed (nout, mu) gather table + sum over the multiplicity axis
-(mu = max #contributions to any output row).  Tables are built on host
-once per static index set.
-
-CPU keeps the native scatter (same op order as the reference path and no
-table memory); the gather-sum changes only the summation order, at
-~eps-level differences.
+With ALFI_TPU_GATHER_SUM=1 (default_use_tables), every hot-loop ``zeros.at[idx].add(vals)`` is
+transposed into a precomputed (nout, mu) gather table + sum over the
+multiplicity axis (mu = max #contributions to any output row): gathers
+and sums only, so the result is deterministic, unlike a scatter-add
+that a GPU runs with atomics.  Tables are built on host once per static
+index set.  The gather-sum changes only the summation order against the
+native scatter, at ~eps-level differences.
 """
 
 from __future__ import annotations
@@ -28,9 +25,7 @@ def make_gather_sum(indices, nout):
         required a dump slot for them).
     vals passed to apply must have shape ``indices.shape + rest``.
 
-    Two formulations, chosen by measured fetch count (TPU gathers run at
-    a fixed ~8 cycles/element, so fetches ARE the cost model —
-    results/logs/gather_microbench.log):
+    Two formulations, chosen by fetch count:
 
     * padded table (nout, mu): every output row fetches mu entries even
       when it receives 0 or 1 contributions — at patch-scatter shapes
@@ -115,13 +110,8 @@ def make_gather_sum(indices, nout):
 
 
 def default_use_tables():
-    """Tables on accelerators, scatter on CPU; ALFI_TPU_GATHER_SUM=0/1
-    overrides (e.g. to validate the table path in CPU test runs)."""
-    import os
-
-    env = os.environ.get("ALFI_TPU_GATHER_SUM")
-    if env is not None:
-        return env == "1"
-    import jax
-
-    return jax.default_backend() != "cpu"
+    """Whether hot-loop scatter-adds become gather-sum tables: opt in
+    with ALFI_TPU_GATHER_SUM=1.  XLA's scatter-add is the default: on
+    the GPU the tables were no faster and neither arm repeats bitwise
+    (PERF.md, backend A/B)."""
+    return os.environ.get("ALFI_TPU_GATHER_SUM") == "1"

@@ -52,8 +52,10 @@ def tstack_zeros(x, n):
 
 
 def tset(buf, j, x):
-    """buf[j] = x for a stacked pytree buffer."""
-    return jax.tree.map(lambda b, xx: b.at[j].set(xx), buf, x)
+    """buf[j] = x for a stacked pytree buffer, stored in the buffer's
+    dtype (an f32 smoother Krylov basis may be handed f64 vectors)."""
+    return jax.tree.map(lambda b, xx: b.at[j].set(xx.astype(b.dtype)),
+                        buf, x)
 
 
 def tget(buf, j):

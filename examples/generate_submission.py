@@ -1,9 +1,9 @@
 """Production run-matrix generator.
 
-TPU-world analogue of /root/reference/examples/generate_submission
+JAX analogue of /root/reference/examples/generate_submission
 (ARCHER PBS job generator): emits, for each of the reference's four
 production cases (p1fb_ldc3d, p1fb_bfs3d, sv_ldc3d, sv_bfs3d), the
-command line + suggested TPU topology.  The reference's weak-scaling
+command line + suggested GPU count.  The reference's weak-scaling
 rule NODES = 2*8^(nref-1) (3D) becomes a chip-count suggestion; on a
 single host the commands run as-is.
 
@@ -55,7 +55,7 @@ def main():
     for name in names:
         cmd, nref, wall, ref_scale = CASES[name]
         print(f"# {name}: walltime ~{wall}; reference scale {ref_scale}")
-        print(f"#   suggested TPU slice: v5p-{8 * chips_for(nref)}")
+        print(f"#   suggested GPUs: {chips_for(nref)} (--ndevices)")
         print(f"python {cmd} --nref-start {nref} --nref-end {nref}"
               f" --time\n")
 

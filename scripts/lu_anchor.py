@@ -17,7 +17,7 @@ LU on one CPU core).  This script does exactly that:
   plain Newton with the solver's own tolerances.
 
 Prints one JSON line with the wall-clock decomposition; compare with
-bench.py's TPU almg number in BASELINE.md.
+bench.py's almg number on the same problem.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def make_solver(dim):
     ldc2d pkp0 nref=2 (41,474 dofs) or scripts/bench3d.py's ldc3d
     [P2+FB]^3-P0 baseN=4 nref=1 (37,395 dofs) — identical residual,
     tolerances and continuation, so the anchor is externally
-    comparable to the TPU almg number (VERDICT r4 item 9)."""
+    comparable to the almg number."""
     if dim == 3:
         from alfi_tpu.problems import ThreeDimLidDrivenCavityProblem
 

@@ -1,15 +1,16 @@
 """Batched dense factorisation strategies (solvers/batched_lu.py) vs
-numpy references — including the elementwise f64 LU that backs the TPU
-patch path (regression: its rank-1 update once corrupted already-stored
+numpy references — including the elementwise f64 LU of the
+ALFI_TPU_PATCH_DTYPE=lu64 arm (regression: its rank-1 update once corrupted already-stored
 L multipliers in columns <= k, giving O(1e-2) solve errors)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from alfi_tpu.solvers.batched_lu import (
     _CustomF64Factorization,
     _ExplicitInverseFactorization,
-    _QRFactorization,
+    _ScipyFactorization,
     lu_factor_batched,
     lu_solve_batched,
     lu_solve_batched_multi,
@@ -45,44 +46,32 @@ def test_custom_lu_multi_rhs():
     assert np.abs(np.asarray(X) - ref).max() < 1e-11
 
 
-def test_strategies_agree_on_al_like_operators():
+@pytest.mark.parametrize("fs", [
+    _CustomF64Factorization(),
+    _ExplicitInverseFactorization(),
+    _ExplicitInverseFactorization(transposed=True),
+    _ScipyFactorization(jnp.float64),
+], ids=["lu64", "inverse", "inverse-patch-minor", "native-lu"])
+def test_strategies_agree_on_al_like_operators(fs):
     """gamma-dominated AL-like patch operators (kappa ~ 1e6)."""
     A, b = _random_batch(force_pivot=False)
     rng = np.random.default_rng(2)
     Bt = rng.standard_normal((11, 9, 3))
     A = A + 1e6 * np.einsum("bip,bjp->bij", Bt, Bt) + 20 * np.eye(9)
     ref = _np_solve(A, b)
-    for fs in (_CustomF64Factorization(), _ExplicitInverseFactorization(),
-               _QRFactorization()):
-        x = fs.solve(fs.factor(jnp.asarray(A)), jnp.asarray(b))
-        rel = np.abs(np.asarray(x) - ref).max() / np.abs(ref).max()
-        assert rel < 1e-8, (type(fs).__name__, rel)
+    x = fs.solve(fs.factor(jnp.asarray(A)), jnp.asarray(b))
+    rel = np.abs(np.asarray(x) - ref).max() / np.abs(ref).max()
+    assert rel < 1e-8, (type(fs).__name__, rel)
 
 
-def test_woodbury_refined_dense_closure():
-    """Coarse-grid gamma-split f32+IR solve matches a direct f64 solve
-    across the gamma sweep of the graddiv study (incl. gamma=0)."""
-    import jax.numpy as jnp
-
-    from alfi_tpu.solvers.linear import woodbury_refined_dense_closure
-
-    rng = np.random.default_rng(3)
-    n, r = 120, 30
-    Q = rng.standard_normal((n, n))
-    M = Q @ Q.T / n + 0.05 * np.eye(n)  # SPD, modest conditioning
-    M = M + 0.1 * rng.standard_normal((n, n)) / n  # mild nonsymmetry
-    B = rng.standard_normal((n, r)) / np.sqrt(n)
-    b = rng.standard_normal(n)
-    for gamma in [0.0, 1.0, 1e4, 1e8]:
-        A = M + gamma * B @ B.T
-        solve = woodbury_refined_dense_closure(
-            jnp.asarray(M), jnp.asarray(B),
-            jnp.asarray(gamma, dtype=jnp.float64))
-        x = np.asarray(solve(jnp.asarray(b)))
-        # backward-error check: forward error is kappa-limited (at
-        # gamma=1e8 kappa ~ 2e9, so ANY f64 solver sits at ~5e-8
-        # forward) — what must hold is a tiny normwise residual
-        back = (np.linalg.norm(A @ x - b)
-                / (np.linalg.norm(A, np.inf) * np.linalg.norm(x)
-                   + np.linalg.norm(b)))
-        assert back < 1e-12, (gamma, back)
+@pytest.mark.parametrize("promote", [False, True])
+def test_patch_minor_apply_matches_batch_major(promote):
+    """solve_t on patch-minor (m, np) vectors is solve on (np, m)."""
+    fs = _ExplicitInverseFactorization(transposed=True, promote=promote)
+    A, b = _random_batch(force_pivot=False)
+    A = A + 20 * np.eye(9)
+    fac = fs.factor(jnp.asarray(A))
+    x = fs.solve_t(fac, jnp.asarray(b.T))
+    assert x.shape == (9, 11)
+    np.testing.assert_allclose(np.asarray(x).T, _np_solve(A, b),
+                               rtol=1e-10, atol=1e-12)

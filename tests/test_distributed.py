@@ -3,7 +3,7 @@
 The decomposition (parallel/decompose.py) + distributed step
 (parallel/distributed.py) must reproduce the global almg solver
 bitwise-close (identical FGMRES iteration counts; dz equal to summation-
-order roundoff) on the virtual 8-device CPU mesh — the TPU-world
+order roundoff) on the virtual 8-device CPU mesh — the single-process
 equivalent of the reference's `mpirun -n N` checks (SURVEY.md §4)."""
 
 import numpy as np
@@ -181,8 +181,7 @@ def test_distributed_supg_continuation_solve():
 
 
 def test_distributed_dc32_smoother_matches_global():
-    """Defect-correction f32 smoother (config.mg_smooth_dtype, the TPU
-    default) in the shard_map path: distributed and global solvers
+    """Defect-correction f32 smoother (config.mg_smooth_dtype, dc32) in the shard_map path: distributed and global solvers
     under the same mdt must agree in iteration counts and state."""
     import jax.numpy as jnp
 

@@ -2,10 +2,8 @@
 
 The accelerator hot paths fetch d-wide rows of the (ndof, d) view
 instead of nld scalars (MGLevel.gather_cells / sum_cells, and the
-patch gather/scatter via patches._scalar_pair_dofs): random gathers
-cost ~16 cycles per FETCH regardless of width on this TPU
-(scripts/gather_microbench.py), so halving/thirding the fetch count
-halves/thirds the index-op time.  CPU test runs keep the default
+patch gather/scatter via patches._scalar_pair_dofs): halving/thirding
+the fetch count of the random gathers.  CPU test runs keep the default
 scatter path, so this file forces the table path and checks it is
 bitwise-equivalent at the level-apply, patch-apply, and full-solve
 surfaces (reference hot loop: /root/reference/alfi/solver.py:313-344).

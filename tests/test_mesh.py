@@ -132,10 +132,35 @@ def test_bary_hierarchy_birth_levels():
     assert (fine.facet_birth_level <= 1).sum() > 0
 
 
-def test_gmsh_read():
+def _write_msh22(path, mesh, tag=1):
+    """Write ``mesh`` as ASCII Gmsh MSH 2.2: cells plus every exterior
+    facet under physical tag ``tag``."""
+    ctype, ftype = (4, 2) if mesh.dim == 3 else (2, 1)
+    verts = np.zeros((mesh.num_vertices, 3))
+    verts[:, :mesh.dim] = mesh.vertices
+    facets = mesh.facet_vertices[mesh.exterior_facets]
+    lines = ["$MeshFormat", "2.2 0 8", "$EndMeshFormat", "$Nodes",
+             str(len(verts))]
+    lines += ["%d %.17g %.17g %.17g" % (i + 1, *v)
+              for i, v in enumerate(verts)]
+    lines += ["$EndNodes", "$Elements", str(len(facets) + mesh.num_cells)]
+    eid = 0
+    for etype, conn in ((ftype, facets), (ctype, mesh.cells)):
+        for c in conn:
+            eid += 1
+            lines.append("%d %d 2 %d %d %s" % (
+                eid, etype, tag, tag, " ".join(str(v + 1) for v in c)))
+    lines.append("$EndElements")
+    path.write_text("\n".join(lines) + "\n")
+
+
+def test_gmsh_read(tmp_path):
+    import os
+
     from alfi_tpu.mesh import gmsh_read
 
-    m = gmsh_read("/root/reference/examples/bfs2d/coarse09.msh")
+    m = gmsh_read(os.path.join(os.path.dirname(__file__), "fixtures",
+                               "bfs2d_coarse12.msh"))
     assert m.dim == 2
     assert m.num_cells > 1000
     assert np.all(m.cell_volumes() > 0)
@@ -144,6 +169,11 @@ def test_gmsh_read():
         assert len(m.boundary_facets(tag)) > 0
     # all exterior facets are marked
     assert np.all(m.facet_markers[m.exterior_facets] > 0)
-    m3 = gmsh_read("/root/reference/examples/mmsldc3d/cube.msh")
+    cube = unit_cube_mesh(3)
+    cube.vertices = 2.0 * cube.vertices - 1.0  # [-1, 1]^3
+    _write_msh22(tmp_path / "cube.msh", cube)
+    m3 = gmsh_read(str(tmp_path / "cube.msh"))
     assert m3.dim == 3
+    assert m3.num_cells == cube.num_cells
     assert np.isclose(m3.cell_volumes().sum(), 8.0, rtol=1e-6)
+    assert np.all(m3.facet_markers[m3.exterior_facets] == 1)

@@ -1,5 +1,5 @@
 """Multi-device tests on the virtual 8-device CPU mesh (conftest.py) —
-the TPU-world analogue of the reference's ``mpirun -n 12`` local testing
+the JAX analogue of the reference's ``mpirun -n 12`` local testing
 (SURVEY.md §4)."""
 
 import jax

@@ -1,5 +1,5 @@
 """Gather-sum accumulation tables (utils/scatter.py) vs native
-scatter-add — the TPU hot-path formulation."""
+scatter-add (backend policy gather_tables)."""
 
 import jax.numpy as jnp
 import numpy as np

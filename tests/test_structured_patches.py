@@ -83,7 +83,7 @@ def test_structured_apply_matches_generic(ldc_level, monkeypatch):
     ps2 = star_patches(lev.V, np.asarray(lev.mask_flat))
     monkeypatch.setenv("ALFI_TPU_STRUCT_PATCH", "1")
     f1, a1 = build_patch_solver(ps1)
-    assert getattr(ps1._fs, "batch_axis", 0) == -1  # structured ran
+    assert getattr(ps1, "layout", None) is not None  # structured ran
     monkeypatch.setenv("ALFI_TPU_STRUCT_PATCH", "0")
     f2, a2 = build_patch_solver(ps2)
 
@@ -166,7 +166,7 @@ def test_sv_macrostar_apply_matches_generic(sv_level, monkeypatch):
     ps2 = macrostar_patches(lev.V, np.asarray(lev.mask_flat))
     monkeypatch.setenv("ALFI_TPU_STRUCT_PATCH", "1")
     f1, a1 = build_patch_solver(ps1)
-    assert getattr(ps1._fs, "batch_axis", 0) == -1  # structured ran
+    assert getattr(ps1, "layout", None) is not None  # structured ran
     monkeypatch.setenv("ALFI_TPU_STRUCT_PATCH", "0")
     f2, a2 = build_patch_solver(ps2)
 
@@ -247,7 +247,7 @@ def test_structured_apply_matches_generic_3d(ldc3d_level, monkeypatch):
     ps2 = star_patches(lev.V, np.asarray(lev.mask_flat))
     monkeypatch.setenv("ALFI_TPU_STRUCT_PATCH", "1")
     f1, a1 = build_patch_solver(ps1)
-    assert getattr(ps1._fs, "batch_axis", 0) == -1  # structured ran
+    assert getattr(ps1, "layout", None) is not None  # structured ran
     monkeypatch.setenv("ALFI_TPU_STRUCT_PATCH", "0")
     f2, a2 = build_patch_solver(ps2)
 
